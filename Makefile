@@ -2,9 +2,9 @@
 # Makefile:28; ours maps onto the python package).
 
 PY ?= python
-CPU_ENV = PYTHONPATH= JAX_PLATFORMS=cpu
+CPU_ENV = JAX_PLATFORMS=cpu
 
-.PHONY: test test-fast bench bench-small verify-drive clean
+.PHONY: test test-fast test-gpu bench smoke verify-drive clean
 
 test:
 	$(PY) -m pytest tests/ -q
@@ -12,11 +12,14 @@ test:
 test-fast:
 	$(PY) -m pytest tests/ -q -x -m "not slow"
 
+test-gpu:
+	JAX_PLATFORMS=cuda,cpu $(PY) -m pytest tests/ -q -m gpu
+
 bench:
 	$(PY) bench.py
 
-bench-small:
-	$(CPU_ENV) $(PY) bench.py --small
+smoke:
+	$(PY) chip_smoke.py
 
 # canonical end-to-end drive vs the C oracle (see .claude/skills/verify)
 verify-drive:

@@ -1,4 +1,4 @@
-"""bwt_tpu — a TPU-native FM-index sequence-search engine.
+"""bwt_tpu — an FM-index sequence-search engine in JAX.
 
 A brand-new JAX / XLA / Pallas framework with the capabilities of the C
 reference `yichizhng/bwt`: 2-bit nucleotide codecs, massively-parallel

@@ -20,10 +20,17 @@ import numpy as np
 
 
 def _force_platform(platform: str | None):
-    if platform and platform != "auto":
-        import jax
+    """Pin JAX to ``platform`` ("cpu" or "gpu"; "auto" leaves JAX's
+    own choice) and turn on the persistent compile cache."""
+    import jax
 
+    from bwt_tpu.utils import compile_cache
+
+    if platform and platform != "auto":
         jax.config.update("jax_platforms", platform)
+        compile_cache.enable(platform)
+    else:
+        compile_cache.enable()
 
 
 def _read_genome(path: str) -> str:
@@ -471,7 +478,7 @@ def cmd_fmitest(args):
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="bwt_tpu", description=__doc__)
     p.add_argument(
-        "--platform", choices=["auto", "cpu", "tpu"], default="auto",
+        "--platform", choices=["auto", "cpu", "gpu"], default="auto",
         help="force a JAX platform (default: auto)",
     )
     sub = p.add_subparsers(dest="cmd", required=True)

@@ -6,7 +6,7 @@ byte, big-endian *within* the byte: base at index ``i`` lives in byte
 ``getbase``).  We keep that byte layout only as a *serialization /
 parity* format.
 
-The TPU-native working layout packs 16 bases per ``uint32`` word with
+The device working layout packs 16 bases per ``uint32`` word with
 little-endian 2-bit lanes (base ``j`` of a word at bits ``2*j``): lane
 extraction and 2-bit-symbol popcounts become shift/mask/popcount chains
 the VPU executes directly, with no byte-order shuffling.
@@ -104,7 +104,7 @@ def unpack_ref_bytes(packed, length: int) -> np.ndarray:
     return lanes.reshape(-1)[:length].copy()
 
 
-# --- TPU word layout ------------------------------------------------------
+# --- device word layout ---------------------------------------------------
 
 
 def pack_words(codes) -> np.ndarray:

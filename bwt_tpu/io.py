@@ -7,7 +7,7 @@ Two formats:
     reference big-endian-within-byte 2-bit packing).  Rank checkpoints
     and lookup tables are deliberately not stored — they are rebuilt on
     load (fileio.c:62-63).
-  * a native ``.npz`` format that round-trips the TPU word layout
+  * a native ``.npz`` format that round-trips the device word layout
     directly.  The schema is 64-bit-clean: ``length`` is stored int64
     and every array round-trips with its dtype verbatim — an int64
     (wide) index built with ``build_index(..., index_dtype=np.int64)``

@@ -1,6 +1,6 @@
 """Batched exact anchored search — the search_reads.c model family.
 
-``anchor_scan`` is the TPU-native re-architecture of the per-read
+``anchor_scan`` is the accelerator re-architecture of the per-read
 anchor loop (search_reads.c:115-133): all reads advance in lockstep
 through a jitted ``lax.while_loop``; each trip runs one batched MMS of
 every read's current prefix and one batched locate, with per-read
@@ -249,48 +249,12 @@ def search_reads(
 
     from bwt_tpu.parallel.mesh import host_fetch
 
-    def _run(fmi_s):
-        chunks = []
-        for lo in range(0, pat.shape[0], cfg.search_batch):
-            hi = lo + cfg.search_batch
-            if fmi_s is fmi:
-                fm, fp = scan(pat[lo:hi], lens[lo:hi])
-                bm, bp = scan(rev[lo:hi], lens[lo:hi])
-            else:  # elastic CPU re-run: plain scans on the rebuilt index
-                fm, fp = anchor_scan(fmi_s, pat[lo:hi], lens[lo:hi],
-                                     min_anchor=min_anchor)
-                bm, bp = anchor_scan(fmi_s, rev[lo:hi], lens[lo:hi],
-                                     min_anchor=min_anchor)
-            chunks.append(host_fetch((fm, fp, bm, bp)))
-        return chunks
-
-    if not cfg.elastic_fallback:
-        chunks = _run(fmi)
-    else:
-        import jax
-
-        try:
-            chunks = _run(fmi)
-        except jax.errors.JaxRuntimeError as e:
-            # device died mid-run (VERDICT r4 weak #6: search_reads
-            # previously had no recovery path): same recipe as
-            # rna_seq's — host-copy the index arrays (re-raises the
-            # original error if the backend is truly unreachable) and
-            # re-run the scans on the CPU backend
-            import sys
-
-            import jax.numpy as jnp
-
-            print(
-                f"bwt_tpu: search_reads device scan failed "
-                f"({type(e).__name__}); re-running on the CPU backend "
-                "(config.elastic_fallback)", file=sys.stderr, flush=True,
-            )
-            host_parts = jax.tree_util.tree_map(np.asarray, fmi)
-            cpu = jax.devices("cpu")[0]
-            with jax.default_device(cpu):
-                fmi2 = jax.tree_util.tree_map(jnp.asarray, host_parts)
-                chunks = _run(fmi2)
+    chunks = []
+    for lo in range(0, pat.shape[0], cfg.search_batch):
+        hi = lo + cfg.search_batch
+        fm, fp = scan(pat[lo:hi], lens[lo:hi])
+        bm, bp = scan(rev[lo:hi], lens[lo:hi])
+        chunks.append(host_fetch((fm, fp, bm, bp)))
     if not chunks:
         z = np.zeros((0,), np.int32)
         fm, fp, bm, bp = z, z, z, z

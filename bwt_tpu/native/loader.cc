@@ -195,7 +195,7 @@ int bwt_fastq_load(const char *path, uint8_t *codes, int32_t *lens,
   return (int)(r == n_reads ? 0 : -1);
 }
 
-// ---- 2-bit packing (TPU word layout) --------------------------------------
+// ---- 2-bit packing (device word layout) -----------------------------------
 
 // codes[0..n) in 0..3 -> words[0..ceil(n/16)), 16 LE 2-bit lanes/word.
 void bwt_pack_words(const uint8_t *codes, long long n, uint32_t *words) {

@@ -1,6 +1,6 @@
 """Gapped-alignment DP: Needleman-Wunsch / pinned variants with the
 reference's pseudo-affine scoring, plus a batched anti-diagonal
-(wavefront) device kernel.
+(wavefront) device fill.
 
 Scoring is bit-exact with smw.c:26-200: match 0, mismatch -6 (read
 code 5, 'N', matches everything), gap -3 per base plus -5 to *open* —
@@ -14,9 +14,10 @@ Two fill paths with identical semantics:
 * ``dp_fill`` — tiny numpy fill used by the sequential alignment
   drivers (tail/head/gap stitches are a few dozen bases; host DP beats
   a device dispatch at that size);
-* ``dp_fill_batch`` — a jitted wavefront over anti-diagonals,
+* ``dp_fill_diagonals`` — a jitted wavefront over anti-diagonals,
   vectorized across the batch and across each diagonal, for
-  device-resident batched alignment.
+  device-resident batched alignment (``dp_fill_batch`` is the same
+  fill in the conventional matrix layout).
 
 Backtrack (variable-length CIGAR emission) is host-side in both cases,
 walking the direction-pointer matrix exactly like smw.c:76-106 /
@@ -166,67 +167,98 @@ def smw_naive(read, genome):
 # Batched device fill: wavefront over anti-diagonals
 # --------------------------------------------------------------------------
 
+# Anti-diagonal steps per loop iteration of the fill and of the
+# batch_exec backtrack (lax.scan ``unroll``), by JAX's default backend
+# at trace time.  Each GPU loop iteration pays a fixed cost of tens of
+# microseconds; on an H100 8 steps per iteration cut the phase-B DP of
+# a 32,768-read single_align call 3.2x against 1, every bucket shape
+# faster.  XLA:CPU ran the same DP 2.7x slower unrolled, so it keeps 1
+# (tools/ab_dp_fill.py --scan-unroll; PERF.md).
+DP_SCAN_UNROLL = {"cpu": 1, "gpu": 8}
+
+
+def dp_scan_unroll() -> int:
+    return DP_SCAN_UNROLL.get(jax.default_backend(), 1)
+
 
 @functools.partial(jax.jit, static_argnames=("scoring",))
-def dp_fill_batch(reads: jax.Array, genomes: jax.Array, scoring=None):
-    """Batched DP fill on device.
+def dp_fill_diagonals(reads: jax.Array, genomes: jax.Array, scoring=None):
+    """Batched DP fill on device, one anti-diagonal per scan step.
 
     ``reads`` (B, L1) int32 codes 0-3/5, ``genomes`` (B, L2) int32
     codes 0-3; both zero-padded (cells beyond a pair's true lengths
-    are filled but never read by the backtrack).  Returns
-    ``(values, pointers)`` of shape (B, L1+1, L2+1) int32.
-    ``scoring`` = (match, mismatch, gap_open, gap_extend), static;
-    None uses the config defaults.
+    are filled but never read).  Returns ``(values, pointers)``, each
+    (L1+L2+1, L1+1, B) int32: ``[d, i, b]`` is DP cell (i, d-i) of
+    pair b; slots with d-i outside [0, L2] hold garbage.  ``scoring``
+    = (match, mismatch, gap_open, gap_extend), static; None uses the
+    config defaults.
 
-    Cell (i, j) depends on (i-1, j-1), (i-1, j) and (i, j-1) — all on
-    the previous two anti-diagonals — so a `lax.scan` over d = i + j
-    updates a full diagonal of cells at once, vectorized over the
-    batch: L1+L2-1 steps instead of L1*L2.
+    Cell (i, j) needs (i-1, j-1) from diagonal d-2 and (i-1, j),
+    (i, j-1) from d-1, so the scan carries the two live diagonals and
+    reaches every neighbour by a static one-row shift: no dynamic
+    gather or scatter.  The genome character of cell (i, d-i) is
+    genome[d-1-i], so a carried register shifts one row per step and
+    takes genome[d-1] in at row 0.
     """
     MATCH, MISMATCH, GAP_OPEN, GAP_EXTEND = (
         scoring if scoring is not None else default_scoring()
     )
     B, L1 = reads.shape
     _, L2 = genomes.shape
-    jj0 = jnp.arange(L2 + 1, dtype=jnp.int32)
-    ii0 = jnp.arange(L1 + 1, dtype=jnp.int32)
-    values = jnp.zeros((B, L1 + 1, L2 + 1), jnp.int32)
-    values = values.at[:, 0, 1:].set(GAP_OPEN + GAP_EXTEND * jj0[1:])
-    values = values.at[:, 1:, 0].set(GAP_OPEN + GAP_EXTEND * ii0[1:])
-    pointers = jnp.zeros((B, L1 + 1, L2 + 1), jnp.int32)
-    pointers = pointers.at[:, 0, 1:].set(2)
-    pointers = pointers.at[:, 1:, 0].set(1)
+    D = L1 + L2 + 1
+    zrow = jnp.zeros((1, B), jnp.int32)
+    rvec = jnp.concatenate(
+        [zrow, jnp.asarray(reads, jnp.int32).T], axis=0
+    )  # rvec[i] = read[i-1]
+    ginj = jnp.zeros((D, B), jnp.int32).at[1 : L2 + 1].set(
+        jnp.asarray(genomes, jnp.int32).T
+    )  # ginj[d] = genome[d-1]
+    row = jnp.arange(L1 + 1, dtype=jnp.int32)[:, None]
 
-    ii = jnp.arange(1, L1 + 1, dtype=jnp.int32)  # row of each wavefront cell
+    def shift(x):
+        return jnp.concatenate([zrow, x[:-1]], axis=0)
 
-    def body(carry, d):
-        values, pointers = carry
-        jj = d - ii
-        valid = (jj >= 1) & (jj <= L2)
-        jc = jnp.clip(jj, 1, L2)
-        diag = values[:, ii - 1, jc - 1]
-        left = values[:, ii, jc - 1]
-        up = values[:, ii - 1, jc]
-        pleft = pointers[:, ii, jc - 1]
-        pup = pointers[:, ii - 1, jc]
-        r = reads[:, ii - 1]
-        g = genomes[:, jc - 1]
-        match = (r == 5) | (r == g)
-        sdiag = diag + jnp.where(match, MATCH, MISMATCH)
-        sleft = left + GAP_EXTEND + jnp.where(pleft == 2, 0, GAP_OPEN)
-        sup = up + GAP_EXTEND + jnp.where(pup == 1, 0, GAP_OPEN)
+    def body(carry, xs):
+        prev2, prev1, pptr1, gdiag = carry
+        d, g = xs
+        gdiag = jnp.concatenate([g[None], gdiag[:-1]], axis=0)
+        match = (rvec == 5) | (rvec == gdiag)
+        sdiag = shift(prev2) + jnp.where(match, MATCH, MISMATCH)
+        sleft = prev1 + GAP_EXTEND + jnp.where(pptr1 == 2, 0, GAP_OPEN)
+        sup = shift(prev1) + GAP_EXTEND + jnp.where(
+            shift(pptr1) == 1, 0, GAP_OPEN)
         v = jnp.maximum(jnp.maximum(sdiag, sleft), sup)
         p = jnp.where(v == sleft, 2, jnp.where(v == sup, 1, 0))
-        v = jnp.where(valid, v, values[:, ii, jc])
-        p = jnp.where(valid, p, pointers[:, ii, jc])
-        values = values.at[:, ii, jc].set(v)
-        pointers = pointers.at[:, ii, jc].set(p)
-        return (values, pointers), None
+        # borders: DP row 0 (row index 0) and column 0 (row index d)
+        v = jnp.where((row == 0) | (row == d), GAP_OPEN + GAP_EXTEND * d, v)
+        p = jnp.where(row == 0, 2, jnp.where(row == d, 1, p))
+        return (prev1, v, p, gdiag), (v, p)
 
-    (values, pointers), _ = jax.lax.scan(
-        body, (values, pointers), jnp.arange(2, L1 + L2 + 1, dtype=jnp.int32)
+    zero = jnp.zeros((L1 + 1, B), jnp.int32)  # diagonal 0: cell (0,0) = 0
+    _, (vals, ptrs) = jax.lax.scan(
+        body, (zero, zero, zero, zero),
+        (jnp.arange(1, D, dtype=jnp.int32), ginj[1:]),
+        unroll=dp_scan_unroll(),
     )
-    return values, pointers
+    return (jnp.concatenate([zero[None], vals]),
+            jnp.concatenate([zero[None], ptrs]))
+
+
+@functools.partial(jax.jit, static_argnames=("scoring",))
+def dp_fill_batch(reads: jax.Array, genomes: jax.Array, scoring=None):
+    """Batched DP fill on device in the conventional layout.
+
+    Same inputs as :func:`dp_fill_diagonals`; returns ``(values,
+    pointers)`` of shape (B, L1+1, L2+1) int32, read out of the
+    per-diagonal fill (cell (i, j) sits at diagonal i+j, row i).
+    """
+    B, L1 = reads.shape
+    _, L2 = genomes.shape
+    vals_d, ptrs_d = dp_fill_diagonals(reads, genomes, scoring)
+    i = jnp.arange(L1 + 1)[:, None]
+    j = jnp.arange(L2 + 1)[None, :]
+    return (jnp.transpose(vals_d[i + j, i], (2, 0, 1)),
+            jnp.transpose(ptrs_d[i + j, i], (2, 0, 1)))
 
 
 @functools.partial(jax.jit, static_argnames=("scoring",))

@@ -1,8 +1,8 @@
 """Occ/rank queries over a fused checkpoint+payload bucket layout.
 
 The reference answers rank() with a checkpoint array read plus a
-byte-table loop (seqindex.c:91-113).  A TPU answers it with gathers
-from HBM, and random-index gathers dominate the whole engine's cost —
+byte-table loop (seqindex.c:91-113).  An accelerator answers it with
+gathers from device memory, and random-index gathers dominate the whole engine's cost —
 so the layout is built around *one row-gather per query*:
 
     bucket row (32 B, aligned):  [occ_A occ_C occ_G occ_T | w0 w1 w2 w3]
@@ -113,10 +113,12 @@ def make_buckets(words: jax.Array, length: int, *, wide: bool = False):
             axis=1, dtype=jnp.int32
         )
     else:
-        # wide inputs: the (nwords, 4) counts temp tiles as T(8,128) —
-        # 32x padding, 16 GB at 2^29 — so count under a lax.scan over
-        # 16 bucket-aligned chunks (sequential, 1/16th-size temp,
-        # reused buffer; same recipe as ops.suffix.upsample16).  The
+        # wide inputs: on a memory layout tiled in (8, 128) blocks the
+        # (nwords, 4) counts temp pads 32x, so this path counts under
+        # a lax.scan over 16 bucket-aligned chunks (sequential,
+        # 1/16th-size temp, reused buffer; same recipe as
+        # ops.suffix.upsample16).  GPU layouts have no such padding;
+        # the choice is unmeasured on the H100 (ROADMAP queue 1).  The
         # pad-word zeroing happens on the bucket totals instead of the
         # word counts: all-pad words count only symbol 'A' (code 0,
         # 16 lanes each), so subtracting 16*(pad words in the bucket)
@@ -248,8 +250,8 @@ def rows2(buckets, endloc, ia, ib, tp_axis=None, nrows=None):
     every shard_map psum shares ``channel_id=1``, so two in-flight
     instances of the same key collide in the in-process rendezvous
     and abort the process (repro: tools/repro_xla_cpu_rendezvous.py).
-    On TPU the fused form is simply cheaper: one gather + one
-    collective of twice the payload."""
+    The fused form is also one gather + one collective of twice the
+    payload instead of two of each."""
     ia = _adjust(endloc, jnp.asarray(ia))
     ib = _adjust(endloc, jnp.asarray(ib))
     rows = _rows(buckets, jnp.stack([ia, ib]), tp_axis, nrows)
@@ -291,9 +293,10 @@ def _lane_masks(r: jax.Array) -> jax.Array:
 
 
 def _select(cols: jax.Array, i: jax.Array) -> jax.Array:
-    """cols[..., i] via one-hot multiply-reduce.  Tiny dynamic column
-    selects lowered as gathers cost ~10 ms per 1M lanes on TPU
-    regardless of table size; as VPU arithmetic they are free."""
+    """cols[..., i] via one-hot multiply-reduce instead of a dynamic
+    gather: chosen for an accelerator where tiny column gathers were
+    slow regardless of table size; unmeasured on the H100 (ROADMAP
+    queue 1)."""
     n = cols.shape[-1]
     oh = i[..., None] == jnp.arange(n, dtype=jnp.int32)
     # dtype pinned: under jax_enable_x64 (wide indexes) jnp.sum would

@@ -4,7 +4,7 @@ The reference walks one read at a time through ``reverse_search`` /
 ``mms`` / ``locate`` (seqindex.c:228-351), two rank() calls per
 nucleotide.  Here thousands of reads advance in lockstep through a
 ``lax.fori_loop``: per step, a vectorized gather of Occ checkpoints +
-packed BWT words and a popcount — the TPU-native shape of the same
+packed BWT words and a popcount — the data-parallel shape of the same
 O(m) algorithm.  Divergence (reads finishing at different steps)
 becomes masking.
 
@@ -189,7 +189,8 @@ def _run_loop(fmi, patterns, eff_len, state, t0, steps, resolve_n,
     def select_char(t):
         ci = jnp.clip(eff_len - 1 - t, 0, L - 1)
         if L <= 128:
-            # one-hot multiply-reduce beats a dynamic gather on TPU
+            # one-hot multiply-reduce instead of a dynamic gather:
+            # chosen for an earlier accelerator, unmeasured on the H100
             oh = jnp.arange(L, dtype=jnp.int32) == ci[:, None]
             return jnp.sum(patterns * oh, axis=1)
         return jnp.take_along_axis(patterns, ci[:, None], axis=1)[:, 0]

@@ -1,13 +1,13 @@
-"""Suffix-array construction on TPU via prefix doubling.
+"""Suffix-array construction on the accelerator via prefix doubling.
 
 The reference builds suffix arrays with a recursive MSD histogram sort
 (histsortcomp.c:35-180) or SACA-K induced sorting (csacak.c:456-528) —
-pointer-chasing recursion a TPU cannot express.  The idiomatic
-replacement is prefix doubling (Manber-Myers): O(log n) rounds of a
-fully data-parallel multi-key sort (`jax.lax.sort`), each round doubling
-the compared prefix length.  Random DNA needs only ~log4(n) effective
-depth, so the dynamic while_loop usually exits after a handful of
-rounds.
+pointer-chasing recursion that does not map onto data-parallel hardware.
+The idiomatic replacement is prefix doubling (Manber-Myers): O(log n)
+rounds of a fully data-parallel multi-key sort (`jax.lax.sort`), each
+round doubling the compared prefix length. Random DNA needs only
+~log4(n) effective depth, so the dynamic while_loop usually exits after
+a handful of rounds.
 
 Conventions match the reference exactly:
   * the SA is built over ``seq + sentinel`` where the sentinel sorts
@@ -65,8 +65,8 @@ def _initial_ranks(codes: jax.Array, length: int,
     i = jnp.arange(length, dtype=dtype)
     o = (2 * (i & 15)).astype(jnp.uint32)
     # word i>>4 and its successor, as strided broadcasts — NOT gathers
-    # (a dynamic-gather HLO runs at ~58M elems/s on TPU; these repeats
-    # run at HBM streaming bandwidth)
+    # (these repeats stream at memory bandwidth; a dynamic gather need
+    # not)
     w0 = jnp.repeat(be[:-1], 16)[:length]
     w1 = jnp.repeat(jnp.concatenate([be[1:], be[:1] * 0]), 16)[:length]
     hi = (w0 << o) | jnp.where(o > 0, w1 >> (32 - o), 0)
@@ -88,9 +88,9 @@ def _suffix_array_impl(codes: jax.Array, length: int,
     m = length + 1
     idx = jnp.arange(m, dtype=dtype)
     done0 = jnp.array(False)
-    # (Measured: folding two doubling rounds into one 3-key sort is a
-    # LOSS on the TPU — the wider comparator costs ~1.3x two narrow
-    # 2-key sorts — so rounds stay narrow.)
+    # (Rounds stay narrow 2-key sorts: folding two doubling rounds
+    # into one 3-key sort lost on the earlier accelerator; unmeasured
+    # on the H100.)
     if m > _INIT_K + 1:
         r = _initial_ranks(codes, length, dtype)
         k0 = _INIT_K
@@ -112,8 +112,7 @@ def _suffix_array_impl(codes: jax.Array, length: int,
         # Second key: rank of the suffix k positions ahead; past-end
         # sorts first (never matters once the sentinel is in play, but
         # keeps the comparison total).  The shift is a dynamic_slice of
-        # the padded array, not a gather (the gather form cost ~0.6 s
-        # per round at 33 M on TPU; this is a streaming copy).
+        # the padded array, not a gather: a streaming copy.
         r2 = jax.lax.dynamic_slice(
             jnp.concatenate([r, fill]), (k,), (m,)
         )
@@ -200,16 +199,15 @@ _UPSAMPLE_PLAIN_MAX = 1 << 20  # module constant so tests can lower it
 def upsample16(words: jax.Array, length: int) -> jax.Array:
     """``out[i] = words[i // 16]`` without a full-width tiled temp.
 
-    ``jnp.repeat(words, 16)`` lowers to a broadcast of shape (nw, 16),
-    which the TPU tiles as T(8,128) — 8x memory padding — and XLA
-    materializes it as an HLO temp inside the suffix-sort program:
-    16 GB at 2^29, the allocation that OOMed the first 2^29 build
-    attempt.  (A (16, nw)-orientation transpose materializes the same
-    padded shape as its output — measured, not guessed.)  A lax.scan
-    over 16 word chunks is sequential by construction, so the padded
-    per-chunk temp is 1/16th the size and its buffer is reused across
-    iterations; chunk outputs stack in position order (chunk-major ==
-    position-major), so no transpose is ever needed."""
+    ``jnp.repeat(words, 16)`` lowers to a broadcast of shape (nw, 16).
+    On a memory layout tiled in (8, 128) blocks that temp pads 8x, so
+    this path was written for such a layout: a lax.scan over 16 word
+    chunks is sequential by construction, the per-chunk temp is 1/16th
+    the size and its buffer is reused across iterations; chunk outputs
+    stack in position order (chunk-major == position-major), so no
+    transpose is needed.  GPU layouts are row-major with no such
+    padding; the plain-vs-chunked choice is unmeasured on the H100
+    (ROADMAP queue 1)."""
     nw = words.shape[0]
     if nw <= _UPSAMPLE_PLAIN_MAX:  # small inputs: plain form fits
         return jnp.repeat(words, 16)[:length]
@@ -467,8 +465,8 @@ def bwt_from_isa(codes: jax.Array, isa: jax.Array):
     ``i = ISA[p+1]`` (the SA row of the suffix starting at ``p+1``) the
     emitting row is ``i`` before the skipped sentinel row and ``i-1``
     after it.  Sorting ``codes`` by that key applies the permutation at
-    ``lax.sort`` cost (~0.6 s at 134 Mb on v5e) where the equivalent
-    dynamic-gather HLO costs ~2.0 s.  ``endloc`` is ``ISA[0]`` by
+    ``lax.sort`` cost, which beat the equivalent dynamic gather on the
+    earlier accelerator (unmeasured on the H100).  ``endloc`` is ``ISA[0]`` by
     definition (``SA[endloc] == 0``).  Returns ``(bwt_codes, endloc)``.
     """
     codes = jnp.asarray(codes)

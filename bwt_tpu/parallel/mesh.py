@@ -1,25 +1,27 @@
 """Multi-chip / multi-host scaling over a `jax.sharding.Mesh`.
 
 The reference's only parallelism is 4 pthreads over shared memory
-(histsortcomp.c:113-155, fmitest.c:54-91).  The TPU-native design
+(histsortcomp.c:113-155, fmitest.c:54-91).  The multi-device design
 (SURVEY.md section 2's parallelism table):
 
 * **dp** (data parallel) — read batches shard across chips; each chip
   runs the identical lockstep backward-search program on its shard.
   This is the production axis: the FM-index of a chromosome-scale
   genome is small (~37.5% of the text bytes, README.md:12-14) and
-  replicates into every chip's HBM.
+  replicates into every device's memory.
 * **tp** (index/tensor parallel) — for genomes whose index exceeds a
-  chip's HBM, the packed-BWT words, Occ checkpoints and sampled SA
-  shard along the sequence dimension; rank gathers then resolve
-  through XLA-inserted collectives over ICI.
+  device's memory, the packed-BWT words, Occ checkpoints and sampled
+  SA shard along the sequence dimension; rank gathers then resolve
+  through collectives that XLA hands to NCCL (NVLink within a host).
 * Hit lists merge by an all-gather of per-shard position arrays; with
   batch order preserved the merged output is bit-identical to the
   single-chip run (deterministic merge).
 
 Multi-host: call `jax.distributed.initialize()` before building the
-mesh; the same `NamedSharding`s then span hosts, with XLA routing
-intra-slice collectives over ICI and cross-slice over DCN.
+mesh; the same `NamedSharding`s then span hosts, with NCCL routing
+collectives over NVLink within a host and the network between hosts.
+Every GPU of a host reaches every other at the same rate, so the mesh
+follows the algorithm alone and takes devices in order.
 """
 
 from __future__ import annotations
@@ -38,9 +40,9 @@ def init_distributed(**kwargs) -> None:
     """Multi-host initialization: call once per host process before
     building a mesh (wraps ``jax.distributed.initialize``; no-op if
     already initialized).  After this, ``jax.devices()`` spans the
-    slice and the same NamedShardings in this module place data
-    across hosts, with XLA routing intra-slice collectives over ICI
-    and cross-slice over DCN.
+    cluster and the same NamedShardings in this module place data
+    across hosts.  Pass ``coordinator_address``, ``num_processes`` and
+    ``process_id`` explicitly where no cluster manager sets them.
 
     Call this before running any JAX computation (device constants
     included) — a pre-initialized local backend cannot join a cluster;
@@ -146,7 +148,7 @@ def sharded_search_step(fmi: FMIndex, patterns, lengths, mesh: Mesh):
     """One full data-parallel search step under the mesh: lockstep
     backward search + LF-walk locate of every read, plus the
     cross-shard total of matched reads (a psum-style reduction XLA
-    lowers onto ICI).  Returns (positions, match_counts, total_hits);
+    lowers onto NCCL).  Returns (positions, match_counts, total_hits);
     positions/counts keep the global batch order (deterministic
     merge).
     """
@@ -212,7 +214,7 @@ def gather_hits(positions, mesh: Mesh | None = None) -> np.ndarray:
     """Merge the sharded hit list into the global batch order.
 
     With a mesh, the merge is an **explicit tiled all_gather over the
-    'dp' axis** (an XLA collective riding ICI/DCN), after which every
+    'dp' axis** (an XLA collective that NCCL carries), after which every
     device holds the identical replicated array — the deterministic
     merge from the blueprint (SURVEY.md section 2's parallelism
     table): output order is the global batch order, independent of
@@ -244,12 +246,10 @@ def gather_hits(positions, mesh: Mesh | None = None) -> np.ndarray:
 # >HBM-genome design is gather-local + psum: every shard gathers the
 # queried rows from its LOCAL bucket block (clipped, masked to rows it
 # owns) and one (B, 8)-int psum over 'tp' reconstructs the true rows.
-# Per rank that costs the same local-gather HBM traffic as the
-# replicated path plus one 32 B/query ICI reduction — at v5e ICI
-# (~10^2 GB/s/link) the psum adds ~0.4 ms per 1M-query step, so the
-# tp path stays gather-floor-bound instead of collective-bound.
-# (Measured perf characterization requires a real multi-chip slice;
-# on the CPU mesh we pin correctness and compile-ability only.)
+# Per rank that costs the same local-gather memory traffic as the
+# replicated path plus one 32 B/query all-reduce over NVLink.  Its
+# cost on four H100s is not measured yet (ROADMAP queue 1); the CPU
+# mesh pins correctness and compile-ability only.
 #
 # The mechanism is ``FMIndex.tp_axis``: a static marker telling every
 # gather primitive in ops/{rank,search} that the index leaves are this

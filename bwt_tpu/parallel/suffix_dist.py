@@ -2,14 +2,14 @@
 
 Why: the single-chip build's limit is the SORT, not the index — the
 doubling rounds keep ~40 B/base of sort workspace live (keys, shifted
-keys, payload, ping-pong buffers), capping one v5e at ~2^27 bases,
-while the finished index is only ~0.9 B/base.  Sharding the *sort*
-across a mesh divides the workspace per chip by the shard count and
-lifts the build cap accordingly (p chips -> ~p * 2^27), with the final
-(small) index arrays built anywhere.
+keys, payload, ping-pong buffers), while the finished index is only
+~0.9 B/base.  Sharding the *sort* across a mesh divides the workspace
+per device by the shard count and lifts the build cap accordingly
+(p devices -> ~p times one device's cap), with the final (small)
+index arrays built anywhere.
 
 How (everything inside ``shard_map`` over one mesh axis, all shapes
-static, all communication explicit XLA collectives on ICI):
+static, all communication explicit XLA collectives):
 
 * ranks live in TEXT order, sharded contiguously (shard s owns global
   positions [s*nloc, (s+1)*nloc));

@@ -3,7 +3,7 @@
 The reference's only instrumentation is a raw rdtsc macro wrapped
 around build and query phases with a hardcoded 2.5 GHz cycles-to-
 seconds conversion (rdtscll.h:16-18, fmitest.c:143-149,
-searchtest.c:94).  The TPU-native replacements:
+searchtest.c:94).  The device replacements:
 
   * :class:`Phases` — wall-clock phase timers with derived rates
     (bases/s, reads/s), the structured equivalent of the reference's
@@ -85,21 +85,25 @@ def span(name: str):
 def device_trace(logdir: str):
     """JAX profiler trace around a region; writes an XPlane/Perfetto
     trace under ``logdir`` (inspect with TensorBoard's profile plugin
-    or perfetto).  Degrades to a no-op if profiling is unavailable on
-    the platform."""
+    or perfetto).  A failure to start or stop the trace raises."""
     import jax
 
-    started = False
-    try:
-        jax.profiler.start_trace(logdir)
-        started = True
-    except Exception:
-        pass
+    jax.profiler.start_trace(logdir)
     try:
         yield
     finally:
-        if started:
-            try:
-                jax.profiler.stop_trace()
-            except Exception:
-                pass
+        jax.profiler.stop_trace()
+
+
+def gpu_card() -> str:
+    """The card's name and power limit as ``nvidia-smi`` reports them
+    (``name, power.limit``, one line per card).  Runs ``nvidia-smi`` as
+    a child process, which touches neither JAX nor the card's memory;
+    raises if it fails."""
+    import subprocess
+
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()

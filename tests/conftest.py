@@ -1,68 +1,45 @@
 """Test configuration: run JAX on a virtual 8-device CPU mesh.
 
-Multi-chip TPU hardware is not available in CI; sharding logic is
-validated on XLA's host platform with 8 virtual devices.  Must run
-before any `import jax` in test modules.
+Sharding logic is validated on XLA's host platform with 8 virtual
+devices.  Must run before any `import jax` in test modules.
+
+The suite runs on the CPU unless ``JAX_PLATFORMS`` says otherwise.
+Tests marked ``gpu`` need an NVIDIA GPU; they run with
+``JAX_PLATFORMS=cuda,cpu python -m pytest tests/ -m gpu`` and skip
+elsewhere (the ``gpu`` fixture decides, at run time).
 """
 
 import os
 
-# BWT_TEST_TPU=1 opts out of the forced-CPU platform for runs in the
-# real-TPU environment (the chromosome-scale parity sweep,
-# test_scale_parity_big.py).  Note the virtual 8-device mesh is CPU
-# -only, so sharding tests should not be selected in such runs.
-_USE_TPU = os.environ.get("BWT_TEST_TPU") == "1"
-
-if not _USE_TPU:
-    os.environ["JAX_PLATFORMS"] = "cpu"
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
 os.environ["XLA_FLAGS"] = (
     os.environ.get("XLA_FLAGS", "")
     + " --xla_force_host_platform_device_count=8"
 )
 
-import pathlib  # noqa: E402
-
-import jax  # noqa: E402
-
-# The env var alone is not honored when a TPU platform plugin is
-# present; the config update is.
-if not _USE_TPU:
-    jax.config.update("jax_platforms", "cpu")
-
-# Persistent compile cache (repo-local): repeated suite runs skip
-# recompilation of the jitted search/build programs.
-#
-# The cache directory is keyed by a fingerprint of THIS host's CPU:
-# jax's cache key does not include the target machine's feature set,
-# so a cache surviving across sessions on different machines serves
-# executables compiled for a different micro-architecture — XLA warns
-# ("machine features ... could lead to execution errors such as
-# SIGILL") and one full-suite run was observed to SIGSEGV inside such
-# a stale entry.  A fresh host pays one cold compile pass instead.
-import hashlib  # noqa: E402
-
-try:
-    _cpu_sig = next(
-        line for line in open("/proc/cpuinfo")
-        if line.startswith(("flags", "Features"))
-    )
-except (OSError, StopIteration):
-    import platform
-
-    _cpu_sig = platform.processor() or platform.machine()
-_tag = hashlib.sha1(_cpu_sig.encode()).hexdigest()[:12]
-# TPU runs share bench.py's cache (device-targeted executables don't
-# have the cross-host CPU-feature hazard); CPU runs stay host-keyed
-_cache = (pathlib.Path(__file__).resolve().parent.parent
-          / (".jax_cache" if _USE_TPU else f".jax_cache_cpu-{_tag}"))
-_cache.mkdir(exist_ok=True)
-jax.config.update("jax_compilation_cache_dir", str(_cache))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-
 import numpy as np  # noqa: E402
 import pytest  # noqa: E402
+
+from bwt_tpu.utils import compile_cache  # noqa: E402
+
+# persistent compile cache (one fixed directory per checkout and
+# platform): repeated suite runs skip recompilation of the jitted
+# search/build programs
+compile_cache.enable()
 
 
 @pytest.fixture(scope="session")
 def rng():
     return np.random.default_rng(12345)
+
+
+@pytest.fixture(scope="session")
+def gpu():
+    """JAX's first device, when it is a GPU; skips the test otherwise."""
+    import jax
+
+    dev = jax.devices()[0]
+    if dev.platform != "gpu":
+        pytest.skip("needs an NVIDIA GPU (run: JAX_PLATFORMS=cuda,cpu "
+                    "python -m pytest tests/ -m gpu)")
+    return dev

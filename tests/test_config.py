@@ -44,19 +44,18 @@ def test_scoring_change_alters_dp_output():
 
 
 def test_scoring_reaches_pallas_kernel():
-    from bwt_tpu.ops import pallas_align
-
+    """The device diagonal fill (the executor's and phase B's DP)
+    consumes the scoring it is given."""
     reads = np.asarray([[0, 1, 2, 3]], np.int32)
     genomes = np.asarray([[0, 1, 1, 3, 0]], np.int32)
-    v1, _ = pallas_align.dp_fill_wavefront(reads, genomes, interpret=True)
-    v2, _ = pallas_align.dp_fill_wavefront(
-        reads, genomes, interpret=True, scoring=(1, -2, -9, -1)
-    )
+    v1, _ = align_ops.dp_fill_diagonals(reads, genomes)
+    v2, _ = align_ops.dp_fill_diagonals(reads, genomes, (1, -2, -9, -1))
     assert not np.array_equal(np.asarray(v1), np.asarray(v2))
-    bv2, _ = align_ops.dp_fill_batch(reads, genomes, (1, -2, -9, -1))
-    # per-diagonal layout [b, d, i] == conventional [b, i, d-i]
-    got = pallas_align.ptr_matrix(np.asarray(v2[0]), 4, 5)
-    assert np.array_equal(got, np.asarray(bv2[0]))
+    hv2, _ = align_ops.dp_fill(reads[0], genomes[0], (1, -2, -9, -1))
+    # per-diagonal layout [d, i, b] == conventional [i, d-i]
+    i = np.arange(5)[:, None]
+    j = np.arange(6)[None, :]
+    assert np.array_equal(np.asarray(v2)[i + j, i, 0], hv2)
 
 
 def test_sa_rate_flows_from_config(rng):

@@ -1,5 +1,5 @@
-"""The 64-bit-clean FMIndex slice (csacak.c:517's int32 TODO, done the
-TPU way): `build_index(..., index_dtype=np.int64)` builds 12-int bucket
+"""The 64-bit-clean FMIndex slice (csacak.c:517's int32 TODO, done with
+one row-gather per rank): `build_index(..., index_dtype=np.int64)` builds 12-int bucket
 rows (occ split lo/hi so a rank is still one int32 row-gather) with
 int64 C / endloc / SA / ISA samples, the SAME query programs serve it
 (every op follows the array dtypes), and the npz format round-trips it

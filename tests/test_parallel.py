@@ -1,6 +1,9 @@
 """Sharding tests on the 8-virtual-device CPU mesh (conftest sets
 xla_force_host_platform_device_count=8)."""
 
+import os
+import pathlib
+
 import numpy as np
 
 import jax
@@ -8,6 +11,18 @@ import jax
 import bwt_tpu
 from bwt_tpu import codec, parallel
 from bwt_tpu.ops import search
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+
+
+def _worker_env():
+    """A bare environment for worker subprocesses that import this
+    checkout's package; the compile-cache variable passes through."""
+    keep = ("HOME", "TMPDIR", "JAX_COMPILATION_CACHE_DIR")
+    return dict(
+        {k: os.environ[k] for k in keep if k in os.environ},
+        PATH="/usr/bin:/bin:/usr/local/bin", PYTHONPATH=str(ROOT),
+    )
 
 
 def _problem(batch):
@@ -192,8 +207,7 @@ def test_tp_out_of_contract_garbage_parity(tmp_path):
     it exactly (wrap-then-fill emulation, ops/rank._rows /
     take_sharded); masking to zero rows diverged here.
 
-    Runs in a SUBPROCESS: like the elastic-fallback test, this
-    workload's collective-heavy run leaves XLA:CPU state that can
+    Runs in a SUBPROCESS: this workload's collective-heavy run leaves XLA:CPU state that can
     SIGSEGV a later unrelated jit at full-suite scale (CLAUDE.md's
     process-hazard notes)."""
     import subprocess
@@ -206,8 +220,6 @@ os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
 os.environ["JAX_PLATFORMS"] = "cpu"
 import jax
 jax.config.update("jax_platforms", "cpu")
-import sys
-sys.path.insert(0, "/root/repo")
 import numpy as np
 import bwt_tpu
 from bwt_tpu import codec, parallel
@@ -238,9 +250,7 @@ for k, (h, a, b) in enumerate(zip(host, single, meshed)):
     assert h[2] == a[2] == b[2], (k, h, a, b)
 print("TP_GARBAGE_PARITY_OK")
 ''')
-    import os
-
-    env = dict(os.environ, PYTHONPATH="")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
     res = subprocess.run(
         [sys.executable, str(script)], capture_output=True, text=True,
         env=env, timeout=600,
@@ -272,22 +282,9 @@ os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
 os.environ["JAX_PLATFORMS"] = "cpu"
 import jax
 jax.config.update("jax_platforms", "cpu")
-# host-fingerprinted CPU cache (tests/conftest.py's scheme: stale
-# cross-machine executables can SIGSEGV)
-import hashlib
-try:
-    _sig = next(l for l in open("/proc/cpuinfo")
-                if l.startswith(("flags", "Features")))
-except (OSError, StopIteration):
-    import platform as _pf
-    _sig = _pf.processor() or _pf.machine()
-jax.config.update(
-    "jax_compilation_cache_dir",
-    "/root/repo/.jax_cache_cpu-"
-    + hashlib.sha1(_sig.encode()).hexdigest()[:12])
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
 pid = int(sys.argv[1]); port = sys.argv[2]
-sys.path.insert(0, "/root/repo")
+from bwt_tpu.utils import compile_cache
+compile_cache.enable("cpu")
 from bwt_tpu import parallel
 parallel.init_distributed(
     coordinator_address="127.0.0.1:" + port, num_processes=2, process_id=pid)
@@ -331,9 +328,7 @@ for key in b:
 print("WORKER_OK", pid)
 '''
     )
-    env = dict(
-        PATH="/usr/bin:/bin:/usr/local/bin", HOME="/root", PYTHONPATH="",
-    )
+    env = _worker_env()
     procs = [
         subprocess.Popen(
             [sys.executable, str(script), str(i), str(port)],
@@ -378,20 +373,9 @@ os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
 os.environ["JAX_PLATFORMS"] = "cpu"
 import jax
 jax.config.update("jax_platforms", "cpu")
-import hashlib
-try:
-    _sig = next(l for l in open("/proc/cpuinfo")
-                if l.startswith(("flags", "Features")))
-except (OSError, StopIteration):
-    import platform as _pf
-    _sig = _pf.processor() or _pf.machine()
-jax.config.update(
-    "jax_compilation_cache_dir",
-    "/root/repo/.jax_cache_cpu-"
-    + hashlib.sha1(_sig.encode()).hexdigest()[:12])
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
 pid = int(sys.argv[1]); port = sys.argv[2]
-sys.path.insert(0, "/root/repo")
+from bwt_tpu.utils import compile_cache
+compile_cache.enable("cpu")
 from bwt_tpu import parallel
 parallel.init_distributed(
     coordinator_address="127.0.0.1:" + port, num_processes=2, process_id=pid)
@@ -444,9 +428,7 @@ for key in b:
 print("WORKER_TP_OK", pid)
 '''
     )
-    env = dict(
-        PATH="/usr/bin:/bin:/usr/local/bin", HOME="/root", PYTHONPATH="",
-    )
+    env = _worker_env()
     procs = [
         subprocess.Popen(
             [sys.executable, str(script), str(i), str(port)],
@@ -470,7 +452,7 @@ def test_graft_entry_single_and_multichip():
     import importlib.util
 
     spec = importlib.util.spec_from_file_location(
-        "__graft_entry__", "/root/repo/__graft_entry__.py"
+        "__graft_entry__", ROOT / "__graft_entry__.py"
     )
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
@@ -542,7 +524,6 @@ os.environ["JAX_PLATFORMS"] = "cpu"
 import jax
 jax.config.update("jax_platforms", "cpu")
 pid = int(sys.argv[1]); port = sys.argv[2]
-sys.path.insert(0, "/root/repo")
 from bwt_tpu import parallel
 parallel.init_distributed(
     coordinator_address="127.0.0.1:" + port, num_processes=2, process_id=pid)
@@ -575,9 +556,7 @@ assert np.array_equal(merged, want), (merged[:8], want[:8])
 print("WORKER_OK", pid)
 '''
     )
-    env = dict(
-        PATH="/usr/bin:/bin:/usr/local/bin", HOME="/root", PYTHONPATH="",
-    )
+    env = _worker_env()
     procs = [
         subprocess.Popen(
             [sys.executable, str(script), str(i), str(port)],

@@ -5,7 +5,7 @@ comparisons at the BASELINE-style scale).
 
 Runtime control: the default run uses 1 Mb / 512 reads per driver
 (~2 min on CPU with a warm compile cache).  Set BWT_SCALE_READS=2000
-for the full 2 k-read sweep (used on TPU / in PARITY.md runs).
+for the full 2 k-read sweep.
 """
 
 import os

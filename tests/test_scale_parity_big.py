@@ -2,12 +2,11 @@
 directive #6 — the automated form of what tools/bench_drivers.py
 records manually in PARITY.md).
 
-Env-gated: set ``BWT_SCALE_GENOME`` (e.g. 33554432) to run; skipped
-otherwise — a 33.5 Mb build plus 32 k reads is a TPU-environment
-workload, not a CPU-suite one (the C SACA-K build alone is ~30 s
-there).  ``BWT_SCALE_BIG_READS`` (default 32768) sets the read count.
-To run on the real TPU instead of the suite's forced-CPU platform, set
-``BWT_TEST_TPU=1`` too (tests/conftest.py honors it).
+Marked ``gpu`` (a 33.5 Mb build plus 32 k reads is a GPU workload, not
+a CPU-suite one) and env-gated: set ``BWT_SCALE_GENOME`` (e.g.
+33554432) to run, with ``JAX_PLATFORMS=cuda,cpu`` and the C reference
+present; skipped otherwise.  ``BWT_SCALE_BIG_READS`` (default 32768)
+sets the read count.
 
 What 1 Mb coverage (test_scale_parity.py) cannot catch and this does:
 regressions that only manifest past 1 Mb — the chunk-pipeline paths
@@ -27,18 +26,21 @@ import subprocess
 import numpy as np
 import pytest
 
-pytestmark = pytest.mark.skipif(
-    not os.environ.get("BWT_SCALE_GENOME"),
-    reason="set BWT_SCALE_GENOME=<bases> (e.g. 33554432) to run the "
-    "chromosome-scale parity sweep",
-)
+pytestmark = [
+    pytest.mark.gpu,
+    pytest.mark.skipif(
+        not os.environ.get("BWT_SCALE_GENOME"),
+        reason="set BWT_SCALE_GENOME=<bases> (e.g. 33554432) to run the "
+        "chromosome-scale parity sweep",
+    ),
+]
 
 GLEN = int(os.environ.get("BWT_SCALE_GENOME", "0") or 0)
 NREADS = int(os.environ.get("BWT_SCALE_BIG_READS", "32768"))
 
 
 @pytest.fixture(scope="module")
-def env(tmp_path_factory):
+def env(gpu, tmp_path_factory):
     import bwt_tpu
     from bwt_tpu import codec
     from bwt_tpu import io as bio

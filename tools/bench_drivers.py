@@ -11,7 +11,7 @@ Workloads:
     (search_reads.c:102-118) anchors nothing, so only our rate is
     meaningful; the C wall-clock is still recorded for scale.
 
-Ours runs on whatever platform JAX picks (TPU when available); the C
+Ours runs on whatever platform JAX picks (the GPU when present); the C
 binaries run single-threaded on this host's CPU, timed end-to-end
 (process wall-clock, excluding index build — both sides load/build
 separately).
@@ -67,9 +67,9 @@ def main():
 
     import jax
 
-    cache = pathlib.Path(__file__).resolve().parent.parent / ".jax_cache"
-    jax.config.update("jax_compilation_cache_dir", str(cache))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    from bwt_tpu.utils import compile_cache
+
+    compile_cache.enable()
 
     import bwt_tpu
     from bwt_tpu import codec, io as bio

@@ -1,25 +1,24 @@
 """Device-only floor of the aligner at 1 Mb / 131 k reads: dispatch
 ALL chunks' automatons + phase-B device halves with ZERO host
 assembly, sync once at the end.  The gap between this and the e2e
-driver is host/latency overhead the pipeline fails to hide (round 5:
-floor 1.13 s = 116 k reads/s equivalent; e2e closed from 1.57 s to
-1.30 s against it).
+driver is host/latency overhead the pipeline fails to hide.
 
 Usage: python tools/probe_device_floor.py
 """
 
-import sys, time, dataclasses
+import pathlib, sys, time, dataclasses
 import numpy as np
-sys.path.insert(0, "/root/repo")
+_TOOLS = pathlib.Path(__file__).resolve().parent
+sys.path.insert(0, str(_TOOLS.parent))
 import jax
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+from bwt_tpu.utils import compile_cache
+compile_cache.enable()
 import jax.numpy as jnp
 import bwt_tpu
 from bwt_tpu.config import DEFAULT
 from bwt_tpu.models import aligner
 from bwt_tpu.models.batch_exec import QueryService
-sys.path.insert(0, "/root/repo/tools")
+sys.path.insert(0, str(_TOOLS))
 from bench_drivers import make_reads
 
 rng = np.random.default_rng(0)

@@ -46,9 +46,9 @@ def main():
 
     import jax
 
-    cache = pathlib.Path(__file__).resolve().parent.parent / ".jax_cache"
-    jax.config.update("jax_compilation_cache_dir", str(cache))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    from bwt_tpu.utils import compile_cache
+
+    compile_cache.enable()
 
     import jax.numpy as jnp
 

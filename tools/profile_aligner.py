@@ -4,7 +4,7 @@ platform: rounds, dispatch counts per kind, and where wall-clock goes
 stepping / fetch).  Picks the next dispatch-fusion target.
 
 Usage: python tools/profile_aligner.py [--genome 1000000] [--reads 32768]
-           [--model single_align|rnaseq] [--sa-rate 8] [--streams 0]
+           [--model single_align|rnaseq] [--sa-rate 8]
 """
 
 from __future__ import annotations
@@ -29,8 +29,6 @@ def main():
     ap.add_argument("--sa-rate", type=int, default=8)
     ap.add_argument("--model", default="single_align",
                     choices=["single_align", "rnaseq"])
-    ap.add_argument("--streams", type=int, default=0,
-                    help="0 = executor default")
     ap.add_argument("--repeat", type=int, default=2)
     ap.add_argument("--isa-spec", type=int, default=None,
                     help="curgap speculative chunk (default: config)")
@@ -38,9 +36,9 @@ def main():
 
     import jax
 
-    cache = pathlib.Path(__file__).resolve().parent.parent / ".jax_cache"
-    jax.config.update("jax_compilation_cache_dir", str(cache))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    from bwt_tpu.utils import compile_cache
+
+    compile_cache.enable()
 
     import jax.numpy as jnp
 
@@ -59,7 +57,6 @@ def main():
     np.asarray(fmi.C)
 
     genome_dev = jax.jit(lambda g: g.astype(jnp.int32))(jnp.asarray(codes))
-    streams = args.streams or None
 
     for it in range(args.repeat):
         ex = None
@@ -83,7 +80,7 @@ def main():
                     args.isa_spec if args.isa_spec else cfg.isa_spec_depth,
                 ))
             ex = BatchExecutor(svc)
-            results = ex.run(gens, streams=streams)
+            results = ex.run(gens)
             naligned = sum(1 for p, _, _ in results if p)
         else:
             from bwt_tpu.models import rnaseq
@@ -100,7 +97,7 @@ def main():
                     cfg.rnaseq_spec_depth,
                 ))
             ex = BatchExecutor(svc)
-            results = ex.run(gens, streams=streams)
+            results = ex.run(gens)
             naligned = sum(1 for p in results if p != -1)
         dt = time.perf_counter() - t0
         print(f"iter {it}: {args.reads} reads in {dt:.2f}s "

@@ -38,13 +38,13 @@ def summarize(logdir: str, top: int = 25):
     data, _ = raw_to_tool_data.xspace_to_tool_data(xs, "trace_viewer", {})
     tr = json.loads(data)
     events = tr["traceEvents"] if isinstance(tr, dict) else tr
-    # device tracks: pid names containing "TPU" / "/device:"
+    # device tracks: pid names containing "/device:"
     pids = {}
     for e in events:
         if e.get("ph") == "M" and e.get("name") == "process_name":
             pids[e["pid"]] = e["args"].get("name", "")
     dev_pids = {p for p, nm in pids.items()
-                if "TPU" in nm or "Device" in nm or "device" in nm}
+                if "Device" in nm or "device" in nm}
     tot = {}
     for e in events:
         if e.get("ph") == "X" and e.get("pid") in dev_pids:
@@ -70,9 +70,9 @@ def main():
 
     import jax
 
-    cache = pathlib.Path(__file__).resolve().parent.parent / ".jax_cache"
-    jax.config.update("jax_compilation_cache_dir", str(cache))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    from bwt_tpu.utils import compile_cache
+
+    compile_cache.enable()
 
     import bwt_tpu
     from bwt_tpu.config import DEFAULT
